@@ -3,15 +3,17 @@
 Spawns N copies of a command with the jax.distributed environment set
 (COORDINATOR_ADDRESS / PROCESS_ID / NUM_PROCESSES), so the multi-host
 training path (per-host data shards, cross-process gradient allreduce
-over Gloo on CPU or ICI/DCN on TPU pods) runs on one machine:
+over NCCL on GPUs or Gloo on CPU) runs on one machine:
 
   python -m kaldi_ctc_tpu.cli.launch --num-processes 2 -- \\
       python -m kaldi_ctc_tpu.cli.train_ctc --feats ... --dir exp
 
-On a real pod slice each host runs the command once instead (the TPU
-runtime auto-detects coordination), making this launcher the local
-stand-in for the reference's run.pl/queue.pl job spawning
-(utils/run.pl:7-29, steps/ctc/train.sh:408-419).
+Child i sees only GPU i (CUDA_VISIBLE_DEVICES): a JAX process reserves
+most of every card it can see, so two processes sharing cards would run
+out of memory.  On several hosts each host runs the command once
+instead, making this launcher the local stand-in for the reference's
+run.pl/queue.pl job spawning (utils/run.pl:7-29,
+steps/ctc/train.sh:408-419).
 """
 
 from __future__ import annotations
@@ -41,6 +43,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def child_cards(num_processes: int, visible=None) -> list:
+    """The one GPU each child may see: the i-th visible card (all cards
+    when CUDA_VISIBLE_DEVICES is unset)."""
+    cards = (visible.split(",") if visible
+             else [str(i) for i in range(num_processes)])
+    if num_processes > len(cards):
+        raise SystemExit(f"launch: {num_processes} processes but only "
+                         f"{len(cards)} visible cards ({visible})")
+    return cards[:num_processes]
+
+
 def main(argv=None):
     import time
 
@@ -51,6 +64,8 @@ def main(argv=None):
     if not cmd:
         print("no command given", file=sys.stderr)
         sys.exit(2)
+    cards = child_cards(args.num_processes,
+                        os.environ.get("CUDA_VISIBLE_DEVICES"))
     port = args.port or _free_port()
     procs = []
     for pid in range(args.num_processes):
@@ -58,6 +73,7 @@ def main(argv=None):
         env["COORDINATOR_ADDRESS"] = f"localhost:{port}"
         env["PROCESS_ID"] = str(pid)
         env["NUM_PROCESSES"] = str(args.num_processes)
+        env["CUDA_VISIBLE_DEVICES"] = cards[pid]
         procs.append(subprocess.Popen(cmd, env=env))
     # poll instead of sequential wait: a process that dies before the
     # jax.distributed rendezvous would leave the others blocked in the

@@ -82,7 +82,7 @@ def parse_args(argv=None):
                         "like nnet-am-copy --remove-dropout)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="matmul operand dtype (bfloat16 = MXU mixed "
+                   help="matmul operand dtype (bfloat16 = mixed "
                         "precision, f32 accumulation)")
     p.add_argument("--add-layers-period", type=int, default=0,
                    help="if >0, start from --start-layers RNN layers and "

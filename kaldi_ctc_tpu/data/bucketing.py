@@ -3,7 +3,7 @@
 The reference sorts egs by length (``ctcbin/nnet-ctc-sort-egs.cc:82-90``,
 ``get_egs2.sh:326-338``) and pads each minibatch to its max length
 (``ctc/ctc-nnet-update.cc:371-419``); cuDNN re-inits descriptors when a new
-max length shows up.  On TPU every distinct padded shape is an XLA
+max length shows up.  Here every distinct padded shape is an XLA
 recompile, so lengths are rounded up to a small geometric menu of bucket
 sizes — recompiles are bounded by the menu size while padding waste stays
 ≤ the menu's growth factor.

@@ -1,6 +1,6 @@
 """On-disk CTC example archives + the egs stream-tool family.
 
-The TPU-native counterpart of NnetCtcExample serialization
+The counterpart of NnetCtcExample serialization
 (``ctc/ctc-nnet-example.h:37-79``, ``ctc/ctc-nnet-example.cc:29-60``) and
 the ctcbin archive tools: ``nnet-ctc-copy-egs`` (round-robin/random
 split), ``nnet-ctc-sort-egs`` (sort by NumFrames, full or windowed,

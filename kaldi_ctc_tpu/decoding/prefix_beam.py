@@ -1,10 +1,10 @@
-"""Batched CTC prefix beam search, fully vectorized for TPU.
+"""Batched CTC prefix beam search, fully vectorized on device.
 
 The LM-free decoder between greedy best-path and the WFST TLG decoder.
 Everything is static-shape: the beam state is dense arrays, per-frame
 candidate generation is a (beam × top-K) expansion, and duplicate-prefix
 merging is an O(P²) masked logsumexp over the candidate pool (P ≤ ~200,
-trivially cheap on the VPU and avoids data-dependent control flow).
+trivially cheap elementwise work that avoids data-dependent control flow).
 
 State per (batch, beam): prefix history [Lmax], length, rolling hash,
 p_blank / p_nonblank log-probabilities (the classic two-track bookkeeping).

@@ -7,7 +7,7 @@ prior[blank] = 9 (``ctcbin/nnet2-ctc-init-model.cc:64-67``).
 
 Blank handling deviates deliberately from the reference: the reference
 *drops* frames whose blank posterior exceeds the threshold (a dynamic-
-shape operation); on TPU we *force* such frames to pure blank
+shape operation); here we *force* such frames to pure blank
 (log-prob 0 for blank, -inf otherwise), which is equivalent for
 best-path/beam decoding up to repeat-merging at skip boundaries and keeps
 shapes static.  `blank_frame_mask` is returned so host-side (WFST)

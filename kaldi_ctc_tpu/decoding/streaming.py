@@ -4,7 +4,7 @@ The online-decoding parity piece (the reference ships online decoder
 variants next to LatticeFasterDecoder — ``src/decoder/``'s
 lattice-faster-online-decoder / online-faster-decoder with their
 AdvanceDecoding idiom).  CTC + a unidirectional stack makes this
-simple on TPU: per-chunk forward with explicit (h, c) carry is exactly
+simple: per-chunk forward with explicit (h, c) carry is exactly
 equivalent to the full-utterance forward, so results match offline
 greedy decoding bit-for-bit while latency is one chunk.
 

@@ -2,7 +2,7 @@
 
 Wraps native/{fst,decoder,api}.cc: OpenFst-compatible graph loading, the
 CTC graph transform (ShiftTransitionIdAndAddBlanks), and token-passing
-best-path beam decoding over TPU-computed acoustic scores.  The shared
+best-path beam decoding over device-computed acoustic scores.  The shared
 library is built on demand with the repo's native/Makefile.
 """
 

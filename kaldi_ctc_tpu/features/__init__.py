@@ -4,7 +4,7 @@ Replaces the reference's ``src/feat/`` DSP stack (feature-window, mel
 banks, fbank, MFCC, CMVN, deltas, splicing) with batched, jittable JAX
 code: framing is a static gather, the STFT is XLA's rFFT over a
 power-of-two padded window, and the mel filterbank + DCT are dense
-matmuls that map straight onto the MXU.
+matmuls.
 """
 
 from kaldi_ctc_tpu.features.window import (  # noqa: F401

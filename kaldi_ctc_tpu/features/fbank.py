@@ -48,50 +48,17 @@ def compute_fbank(
     wave: jnp.ndarray,
     opts: FbankOptions = FbankOptions(),
     dither_key: Optional[jax.Array] = None,
-    implementation: str = "auto",
     vtln_warp: float = 1.0,
 ) -> jnp.ndarray:
     """Fbank features for one waveform [num_samples] → [num_frames, dim].
 
     Matches FbankComputer::Compute (feature-fbank.cc:72-126) with
     dither disabled unless a PRNG key is supplied.
-
-    implementation: "xla" | "pallas" (fused STFT→mel kernel) | "auto"
-    (pallas on TPU when its fast path applies).
     """
     fo = opts.frame_opts
     window = jnp.asarray(feature_window(fo))
     mel = jnp.asarray(mel_banks(opts.mel_opts, fo, vtln_warp=vtln_warp))
-    if opts.mel_opts.htk_mode:
-        # 1.0 mel-energy floor sits pre-log; the fused kernel logs
-        # in-kernel, so this (test-only) mode goes through XLA
-        implementation = "xla"
-
     frames = frame_signal(wave, fo)
-
-    if implementation == "auto":
-        implementation = ("pallas" if jax.default_backend() == "tpu"
-                          else "xla")
-    # the fused kernel computes the RAW (pre-window) energy only
-    pallas_ok = opts.raw_energy or not opts.use_energy
-    if implementation in ("pallas", "pallas_interpret") and pallas_ok \
-            and frames.shape[0] > 0:
-        from kaldi_ctc_tpu.features.stft_pallas import log_mel_pallas
-        if fo.dither != 0.0 and dither_key is not None:
-            frames = frames + fo.dither * jax.random.normal(
-                dither_key, frames.shape, dtype=frames.dtype)
-        mel_energies, raw_energy = log_mel_pallas(
-            frames, window, mel, fo.padded_window_size,
-            remove_dc=fo.remove_dc_offset, preemph=fo.preemph_coeff,
-            use_power=opts.use_power, use_log=opts.use_log_fbank,
-            interpret=implementation == "pallas_interpret")
-        if opts.use_energy:
-            energy = raw_energy
-            if opts.energy_floor > 0.0:
-                energy = jnp.maximum(energy,
-                                     float(np.log(opts.energy_floor)))
-            return _with_energy(mel_energies, energy, opts)
-        return mel_energies
     need_raw = opts.use_energy and opts.raw_energy
     frames, raw_energy = process_frames(
         frames, fo, window, dither_key=dither_key, need_raw_energy=need_raw)

@@ -1,9 +1,9 @@
 """Mel filterbank construction (reference: src/feat/mel-computations.cc:33-140).
 
 The reference stores each triangular bin as a sparse (offset, coeffs) pair
-and does per-bin dot products; on TPU we build one dense
+and does per-bin dot products; here we build one dense
 [num_bins, num_fft_bins] matrix on the host once and apply it as a single
-matmul over the whole utterance — that is the MXU-friendly formulation.
+matmul over the whole utterance.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 DCT + liftering fold into a single precomputed [num_ceps, num_bins] matrix
 applied as one matmul after the log-mel stage — the whole utterance's MFCCs
-are two matmuls and an FFT on TPU.
+are two matmuls and an FFT.
 """
 
 from __future__ import annotations
@@ -77,55 +77,21 @@ def compute_mfcc(
     wave: jnp.ndarray,
     opts: MfccOptions = MfccOptions(),
     dither_key: Optional[jax.Array] = None,
-    implementation: str = "auto",
     vtln_warp: float = 1.0,
 ) -> jnp.ndarray:
     """MFCCs for one waveform [num_samples] → [num_frames, num_ceps].
 
     Matches MfccComputer::Compute (feature-mfcc.cc:32-85).
-
-    implementation: "xla" | "pallas" (fused STFT→log-mel kernel, DCT as
-    one more matmul) | "auto" (pallas on TPU when applicable).
     """
     fo = opts.frame_opts
     window = jnp.asarray(feature_window(fo))
     mel = jnp.asarray(mel_banks(opts.mel_opts, fo, vtln_warp=vtln_warp))
-    if opts.mel_opts.htk_mode:
-        # the 1.0 mel-energy floor lives between the mel matmul and the
-        # log; the fused Pallas kernel applies log in-kernel, so the
-        # (test-only) htk_mode path routes through XLA
-        implementation = "xla"
     dct = dct_matrix(opts.num_ceps, opts.mel_opts.num_bins)
     if opts.cepstral_lifter != 0.0:
         dct = dct * lifter_coeffs(opts.cepstral_lifter, opts.num_ceps)[:, None]
     dct = jnp.asarray(dct)
 
     frames = frame_signal(wave, fo)
-
-    if implementation == "auto":
-        implementation = ("pallas" if jax.default_backend() == "tpu"
-                          else "xla")
-    pallas_ok = opts.raw_energy or not opts.use_energy
-    if implementation in ("pallas", "pallas_interpret") and pallas_ok \
-            and frames.shape[0] > 0:
-        from kaldi_ctc_tpu.features.stft_pallas import log_mel_pallas
-        if fo.dither != 0.0 and dither_key is not None:
-            frames = frames + fo.dither * jax.random.normal(
-                dither_key, frames.shape, dtype=frames.dtype)
-        log_mel, raw_energy = log_mel_pallas(
-            frames, window, mel, fo.padded_window_size,
-            remove_dc=fo.remove_dc_offset, preemph=fo.preemph_coeff,
-            use_power=True, use_log=True,
-            interpret=implementation == "pallas_interpret")
-        feats = jnp.dot(log_mel, dct.T,
-                        precision=jax.lax.Precision.HIGHEST)
-        if opts.use_energy:
-            energy = raw_energy
-            if opts.energy_floor > 0.0:
-                energy = jnp.maximum(energy,
-                                     float(np.log(opts.energy_floor)))
-            feats = feats.at[:, 0].set(energy)
-        return _htk_reorder(feats, opts)
     need_raw = opts.use_energy and opts.raw_energy
     frames, raw_energy = process_frames(
         frames, fo, window, dither_key=dither_key, need_raw_energy=need_raw)
@@ -135,8 +101,8 @@ def compute_mfcc(
         raw_energy = jnp.log(jnp.maximum(
             jnp.sum(frames * frames, axis=1), jnp.finfo(jnp.float32).eps))
     eps = jnp.finfo(jnp.float32).eps
-    # full-precision matmuls: TPU's default bf16-pass matmul visibly
-    # quantizes log-mel values (~0.1 steps at typical magnitudes)
+    # full-precision matmuls: a reduced-precision default (bf16 passes,
+    # TF32) visibly quantizes log-mel values
     hi = jax.lax.Precision.HIGHEST
     mel_energies = jnp.dot(power[:, :-1], mel.T, precision=hi)
     if opts.mel_opts.htk_mode:

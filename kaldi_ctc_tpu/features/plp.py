@@ -6,7 +6,7 @@ compression (^compress_factor) → duplicate edge bins → inverse DFT to
 autocorrelation → Levinson-Durbin LPC → LPC-to-cepstrum → liftering →
 scaling → energy/C0 handling.
 
-TPU formulation: everything up to the autocorrelation is matmuls over
+Formulation: everything up to the autocorrelation is matmuls over
 the whole utterance (the IDFT bases fold into one [lpc_order+1,
 num_bins+2] matrix); the Durbin recursion is a short
 ``lax.fori_loop`` over the LPC order (12 iterations) with every frame

@@ -4,7 +4,7 @@ Replaces src/feat/resample.{h,cc} (LinearResample) for the recipe's 3-way
 speed perturbation (run_ctc_phone.sh stage 0 uses sox/utils
 perturb_data_dir_speed.sh; here the same effect is computed in-process).
 Implemented as a windowed-sinc filter bank applied with one matmul per
-output phase — the MXU-friendly formulation of polyphase resampling.
+output phase — polyphase resampling as dense matmuls.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Frame extraction and windowing (reference: src/feat/feature-window.{h,cc}).
 
-TPU-first: frames are materialized with one gather indexed by
+Frames are materialized with one gather indexed by
 ``frame*shift + arange(len)`` (reflection handled by index arithmetic for
 snip_edges=False), and all per-frame processing (dither, DC removal,
 preemphasis, window multiply) is vectorized over the whole utterance.

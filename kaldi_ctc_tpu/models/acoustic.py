@@ -68,7 +68,7 @@ class AmConfig:
     # (11,41), (11,21), (11,21), freq stride 2 per layer and time stride
     # `conv_time_stride` on the first layer, leaky clipped-ReLU(20)
     # activations (see am_forward for why not the paper's batch norm); the (freq, channel) map flattens into the RNN input.
-    # Convs run on the MXU and the time stride cuts the sequential RNN
+    # Convs are dense device work and the time stride cuts the sequential RNN
     # length, so this family trades a little accuracy for throughput.
     conv_layers: int = 0
     conv_channels: int = 32
@@ -263,20 +263,17 @@ def am_forward(
     AffineComponentPreconditionedOnline::Update preconditions.
     """
     if cfg.conv_layers:
-        # DS2 conv front end, batch-major: [B, T, F, 1] NHWC convs on
-        # the MXU with 'SAME' padding, clipped ReLU(20) (the DS2
+        # DS2 conv front end, batch-major: [B, T, F, 1] NHWC convs with
+        # 'SAME'-style padding, clipped ReLU(20) (the DS2
         # activation), pad frames masked out at each rate so strided
         # outputs never mix valid and pad content beyond the reach a
         # real 'SAME' edge has
         # Convs always compute in f32, even when compute_dtype is
-        # bfloat16 — a measured gate, like rnn_pallas._use_in_kernel_proj:
-        # on v5e at flagship DS2 shapes, bf16 convs with per-layer f32
-        # round trips measured 37.9k audio-s/s, end-to-end-bf16 convs
-        # 39.0k, and f32 convs + bf16 recurrent stack 39.7k (vs 39.2k
-        # all-f32).  The strided convs gain nothing from half-width
-        # streams (MXU-accumulation-bound at these channel counts) while
-        # every cast costs HBM traffic, so bf16 mixed precision keeps
-        # its win in the BLSTM stack only.
+        # bfloat16: on the accelerator this family was first tuned on,
+        # f32 convs beside a bf16 recurrent stack measured faster than
+        # bf16 convs with their extra casts.  That choice has not been
+        # measured on the H100, where bf16 convs reach cuDNN's tensor
+        # cores (ROADMAP A7).
         cd = jnp.float32
         x = feats[..., None]  # [B, T, F, 1]
         lens = input_lens

@@ -1,6 +1,6 @@
 """CTC loss: log-space alpha-beta over the blank-interleaved label lattice.
 
-This is the TPU-native replacement for warp-ctc (called by the reference at
+This is the replacement for warp-ctc (called by the reference at
 ``ctc/ctc-nnet-update.cc:200-248``): same contract — takes pre-softmax
 activations, returns per-utterance negative log-likelihood and the gradient
 w.r.t. the activations — with ``blank = 0``
@@ -16,11 +16,10 @@ Utterances where ``T < 2L+1`` have zero probability; their loss contribution
 and gradient are masked to 0 and flagged (the reference skips such egs —
 ``ctc/ctc-nnet-train.cc:86-94``).
 
-Layout/perf notes: the recursion is a ``lax.scan`` over time with the state
-``alpha [B, S]`` resident on-chip; per-frame work is a gather from the
+Layout notes: the recursion is a ``lax.scan`` over time with the state
+``alpha [B, S]`` as the carry; per-frame work is a gather from the
 ``[B, A]`` frame posteriors to ``[B, S]`` plus a 3-way shifted logaddexp —
-all VPU-friendly, batched over B.  A fused Pallas kernel for the alpha-beta
-sweep lives in ``ctc_pallas.py``.
+elementwise, batched over B.
 """
 
 from __future__ import annotations
@@ -218,16 +217,12 @@ ctc_loss.defvjp(_ctc_fwd, _ctc_bwd)
 
 def ctc_loss_and_grad(
     logits, labels, input_lens, label_lens, blank: int = 0,
-    implementation: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Loss [B] and d(loss)/d(logits) [B, T, A] via the alpha-beta sweep.
 
     The gradient is the classic warp-ctc formula:
       d(-log Z)/d(logit[t,a]) = softmax(logit)[t,a]
           - (1/Z) * sum_{s: ext[s]=a} exp(alpha[t,s] + beta[t,s] - lp[t,a])
-
-    implementation: "xla" (lax.scan recursions), "pallas" (fused VMEM
-    kernels for the recursions), or "auto" (pallas on TPU).
     """
     b, t_max, a_dim = logits.shape
     log_probs = jax.nn.log_softmax(logits, axis=-1)
@@ -243,22 +238,10 @@ def ctc_loss_and_grad(
         log_probs, ext[:, None, :].astype(jnp.int32), axis=2)
     lp_ext_t = jnp.moveaxis(lp_ext, 1, 0)  # [T, B, S]
 
-    if implementation == "auto":
-        implementation = ("pallas" if jax.default_backend() == "tpu"
-                          else "xla")
-    if implementation in ("pallas", "pallas_interpret"):
-        from kaldi_ctc_tpu.ops.ctc_pallas import alpha_beta_pallas
-        interp = implementation == "pallas_interpret"
-        alphas, betas = alpha_beta_pallas(
-            lp_ext_t, skip_ok, skip_down, input_lens, label_lens,
-            interpret=interp)
-        log_z = _log_z(alphas[-1], label_lens)
-    else:
-        alphas, final = _forward_alphas(log_probs, ext, skip_ok, input_lens,
-                                        lp_ext=lp_ext_t)
-        log_z = _log_z(final, label_lens)
-        betas = _backward_betas(lp_ext_t, ext, skip_down, input_lens,
-                                label_lens)
+    alphas, final = _forward_alphas(log_probs, ext, skip_ok, input_lens,
+                                    lp_ext=lp_ext_t)
+    log_z = _log_z(final, label_lens)
+    betas = _backward_betas(lp_ext_t, ext, skip_down, input_lens, label_lens)
 
     # state posteriors: gamma = alpha + beta - lp (lp counted twice)
     gamma = alphas + betas - lp_ext_t  # [T, B, S]
@@ -270,11 +253,9 @@ def ctc_loss_and_grad(
     valid_s = s_idx <= 2 * label_lens[None, :, None]
     post = jnp.where(valid_t & valid_s, post, 0.0)
 
-    # Sum posteriors back to the alphabet dim: [T, B, S] -> [B, T, A].
-    # Expressed as a batched matmul against a one-hot of the extended
-    # labels so it lands on the MXU — a vmap'd scatter-add here serializes
-    # on TPU and dominated the whole loss (12 ms -> sub-ms at the
-    # flagship shapes).
+    # Sum posteriors back to the alphabet dim: [T, B, S] -> [B, T, A],
+    # as a batched matmul against a one-hot of the extended labels (a
+    # dense contraction instead of a serializing scatter-add).
     post_bt = jnp.moveaxis(post, 0, 1)  # [B, T, S]
     onehot = jax.nn.one_hot(ext.astype(jnp.int32), a_dim,
                             dtype=post.dtype)  # [B, S, A]

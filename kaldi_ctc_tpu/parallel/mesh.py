@@ -4,12 +4,12 @@ Replaces the reference's process-per-GPU + parameter-averaging "distributed
 runtime" (``steps/ctc/train.sh:386-446``, ``utils/run.pl``) with a single
 SPMD program over a ``jax.sharding.Mesh``:
 
-- ``data`` axis: utterance minibatch sharded across chips; the gradient
-  allreduce XLA inserts over ICI is mathematically stronger than the
-  reference's once-per-outer-iteration ``nnet-am-average``.
+- ``data`` axis: utterance minibatch sharded across devices; the
+  per-step gradient allreduce XLA inserts is mathematically stronger than
+  the reference's once-per-outer-iteration ``nnet-am-average``.
 - ``model`` axis (optional): gate/hidden dims of the recurrent weights and
   the output projection sharded for tensor parallelism when the model
-  exceeds one HBM (north-star requirement; the reference has no TP).
+  exceeds one device's memory (the reference has no TP).
 """
 
 from __future__ import annotations

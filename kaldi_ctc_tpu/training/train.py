@@ -17,7 +17,7 @@ the train.sh outer-loop semantics (``steps/ctc/train.sh:327-456``):
   (``ctc/ctc-nnet-update.cc:261-317``) — argmax+collapse on device,
   Levenshtein on host;
 - data parallelism: batch arrays sharded over the mesh 'data' axis, params
-  replicated; XLA inserts the ICI gradient allreduce (vs the reference's
+  replicated; XLA inserts the gradient allreduce (vs the reference's
   once-per-iteration ``nnet-am-average``, ``steps/ctc/train.sh:431-435``).
 """
 

@@ -1,6 +1,6 @@
 """Pure-Python readers/writers for Kaldi table I/O (ark/scp).
 
-This is the TPU framework's replacement for the reference's table-I/O layer
+This is the framework's replacement for the reference's table-I/O layer
 (``src/util/kaldi-table.h:44-124`` — SequentialTableReader / TableWriter over
 ``ark:``/``scp:`` rspecifier strings, including command pipes) and the matrix
 serialization code (``src/matrix/kaldi-matrix.cc:1221-1360``,

@@ -4,7 +4,7 @@
 // CTC decoding (decoder/lattice-faster-decoder.h:40-96,129,342-346 via
 // ctc/ctc-decoder-wrappers.cc:27-126): per frame ProcessEmitting over the
 // CTC graph with acoustic costs pulled from a precomputed score matrix
-// (the TPU forward pass already ran — the lazy DecodableInterface
+// (the device forward pass already ran — the lazy DecodableInterface
 // collapses to an array lookup), then epsilon-closure ProcessNonemitting,
 // with beam + max-active histogram pruning.  Backpointers give the best
 // path (words + per-frame ilabel alignment).

@@ -1,6 +1,6 @@
 // In-memory WFST (tropical semiring) + OpenFst VectorFst<StdArc> binary I/O.
 //
-// Native-runtime piece of the TPU framework: the replacement for the
+// Native-runtime piece of the framework: the replacement for the
 // OpenFst surface the reference decoder consumes (src/fstext/, the graphs
 // produced by utils/mkgraph.sh).  Only the on-disk format is shared with
 // OpenFst so Kaldi-built TLG/CTC graphs load directly; the in-memory

@@ -6,7 +6,7 @@
 // PruneTokensForFrame) as driven by DecodeUtteranceLatticeFasterCtc
 // (ctc/ctc-decoder-wrappers.cc:27-126).  Differences from the reference
 // are structural, not semantic: the acoustic model already ran on the
-// TPU, so acoustic costs come from a dense score matrix instead of a lazy
+// device, so acoustic costs come from a dense score matrix instead of a lazy
 // DecodableInterface, and pruning is one exact forward-backward pass over
 // the surviving link DAG after decoding instead of the reference's
 // periodic incremental pruning (same final lattice for the same beams,

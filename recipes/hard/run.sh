@@ -54,18 +54,10 @@ blank_threshold=${blank_threshold:-0.98}
 cd "$(dirname "$0")"
 export PYTHONPATH="$(cd ../.. && pwd)${PYTHONPATH:+:$PYTHONPATH}"
 
-# wedge-resilient stage launcher (see recipes/medium/run.sh)
+# Every CLI stage runs as its own process under a wall-clock bound;
+# KCTPU_STAGE_TIMEOUT (seconds) raises it for the big training stage.
 pyrun() {
-  local attempt rc
-  for attempt in 1 2 3; do
-    timeout -k 10 "${KCTPU_STAGE_TIMEOUT:-900}" \
-      python -m kaldi_ctc_tpu.cli.devwatch "$@" && rc=0 || rc=$?
-    { [ "$rc" -ne 66 ] && [ "$rc" -ne 124 ]; } && return "$rc"
-    echo "pyrun: stage wedged (rc=$rc, attempt $attempt); retrying in 15s" >&2
-    sleep 15
-  done
-  echo "pyrun: stage failed after 3 wedged attempts" >&2
-  return 1
+  timeout -k 10 "${KCTPU_STAGE_TIMEOUT:-900}" python -m "$@"
 }
 
 # arm -> extra train flags

@@ -1,6 +1,6 @@
 """Test configuration: run all tests on a virtual 8-device CPU mesh.
 
-Multi-chip sharding is validated without TPU hardware by exposing 8 CPU
+Multi-device sharding is validated without accelerators by exposing 8 CPU
 devices (the analogue of the reference's "run.pl runs cluster jobs as local
 background processes", utils/run.pl:7-29).  jax.config is used rather than
 env vars because pytest plugins may import jax before this file runs.

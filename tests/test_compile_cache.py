@@ -1,50 +1,59 @@
-"""Compile-cache scoping: the default cache dir is per-host-type.
+"""Persistent compile-cache location.
 
-Round-4 judge finding: the shared default dir served XLA:CPU AOT
-artifacts compiled for a different CPU feature set ("could lead to
-execution errors such as SIGILL").  The fix scopes the default dir by a
-fingerprint of the host's CPU flags, so a mismatched host resolves a
-*different* directory instead of loading a poisoned entry.
+JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and the package
+must leave it alone; otherwise the cache lives at one fixed directory in
+the checkout, which git ignores.  Each case runs in a fresh interpreter,
+because the package decides at import time.
 """
 
-from kaldi_ctc_tpu import _host_cache_fingerprint
+import json
+import os
+import subprocess
+import sys
 
-X86_A = """processor : 0
-flags : fpu vme de pse tsc msr sse sse2 avx avx2
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import json, jax
+calls = []
+_update = jax.config.update
+def update(name, value):
+    calls.append(name)
+    return _update(name, value)
+jax.config.update = update
+import kaldi_ctc_tpu
+print(json.dumps({"dir": jax.config.jax_compilation_cache_dir,
+                  "calls": calls}))
 """
-X86_B = """processor : 0
-flags : fpu vme de pse tsc msr sse sse2 avx avx2 avx512f avx512vl
-"""
-ARM = """processor : 0
-Features : fp asimd evtstrm aes pmull sha1 sha2 crc32
-"""
 
 
-def test_fingerprint_differs_across_feature_sets():
-    a = _host_cache_fingerprint(X86_A)
-    b = _host_cache_fingerprint(X86_B)
-    c = _host_cache_fingerprint(ARM)
-    assert len({a, b, c}) == 3
-    assert all(len(x) == 12 for x in (a, b, c))
+def _probe(env_dir=None):
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = REPO
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         check=True, timeout=120)
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def test_fingerprint_stable_and_order_insensitive():
-    assert _host_cache_fingerprint(X86_A) == _host_cache_fingerprint(X86_A)
-    shuffled = X86_A.replace("fpu vme de pse tsc msr sse sse2 avx avx2",
-                             "avx2 avx sse2 sse msr tsc pse de vme fpu")
-    assert _host_cache_fingerprint(shuffled) == _host_cache_fingerprint(X86_A)
+def test_env_var_is_honoured(tmp_path):
+    got = _probe(str(tmp_path / "cache"))
+    assert got["dir"] == str(tmp_path / "cache")
 
 
-def test_live_default_dir_is_scoped(monkeypatch):
-    """The live process resolved a scoped dir (unless the env overrode it)."""
-    import os
+def test_env_var_means_no_override(tmp_path):
+    got = _probe(str(tmp_path / "cache"))
+    assert "jax_compilation_cache_dir" not in got["calls"]
 
-    import jax
 
-    if os.environ.get("KCTPU_COMPILE_CACHE", "1") == "0":
-        return
-    if os.environ.get("KCTPU_COMPILE_CACHE_DIR"):
-        return
-    d = jax.config.jax_compilation_cache_dir
-    assert d is not None
-    assert os.path.basename(d) == _host_cache_fingerprint()
+def test_default_is_fixed_dir_in_checkout():
+    from kaldi_ctc_tpu import CHECKOUT_CACHE_DIR
+
+    got = _probe()
+    assert got["dir"] == CHECKOUT_CACHE_DIR == os.path.join(REPO,
+                                                            ".jax_cache")
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -218,3 +218,44 @@ def test_loss_decreases_when_training_tiny():
     ids = jnp.argmax(x, axis=-1)
     out, out_lens = greedy_collapse(ids, il)
     assert list(np.asarray(out)[0][: int(out_lens[0])]) == [1, 2, 3]
+
+
+# ---------------------------------------------------------------------------
+# ctc_loss_and_grad against the float64 numpy alpha-beta reference
+# ---------------------------------------------------------------------------
+
+def _vs_reference(logits, labels, input_lens, label_lens, tol=1e-4):
+    from kaldi_ctc_tpu import reference
+    loss, grad = ctc_loss_and_grad(*map(jnp.asarray, (
+        logits, labels, input_lens, label_lens)))
+    want_loss, want_grad = reference.ctc_loss_and_grad(
+        logits, labels, input_lens, label_lens)
+    np.testing.assert_allclose(np.asarray(loss), want_loss, rtol=1e-5,
+                               atol=tol)
+    np.testing.assert_allclose(np.asarray(grad), want_grad, rtol=0,
+                               atol=tol)
+    return np.asarray(loss)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_loss_and_grad_match_reference(seed):
+    rng = np.random.default_rng(seed)
+    _vs_reference(*_random_case(rng, b=6, t=24, a=10, lmax=5))
+
+
+def test_infeasible_and_short_utts_match_reference():
+    logits = np.random.default_rng(2).standard_normal((3, 9, 5)).astype(
+        np.float32)
+    labels = np.asarray([[1, 1, 1, 0], [2, 3, 0, 0], [4, 0, 0, 0]], np.int32)
+    # utt0 infeasible ([1,1,1] needs 5 frames), utt2 only 3 frames long
+    loss = _vs_reference(logits, labels, np.asarray([4, 9, 3]),
+                         np.asarray([3, 2, 1]))
+    assert loss[0] == 0.0 and loss[1] > 0.0 and loss[2] > 0.0
+
+
+def test_empty_label_batch_matches_reference():
+    """All-empty transcripts: extended width S=1 (blank only)."""
+    logits = np.random.default_rng(0).standard_normal((2, 6, 5)).astype(
+        np.float32)
+    _vs_reference(logits, np.zeros((2, 0), np.int32),
+                  np.asarray([6, 4]), np.zeros((2,), np.int32))

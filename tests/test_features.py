@@ -184,11 +184,23 @@ def test_splice_frames():
     np.testing.assert_array_equal(out[9], [7, 8, 9, 9, 9])
 
 
-def test_wave_reader_reference_fixture():
+def test_wave_reader_reference_fixture(tmp_path):
+    """A seeded 16-bit stereo WAV read back and turned into features."""
+    import wave as wavemod
+
     from kaldi_ctc_tpu.features.wave import read_wave
-    samples, rate = read_wave("/root/reference/src/feat/test_data/test.wav")
-    assert rate > 0 and samples.shape[0] >= 1 and samples.shape[1] > 1000
-    # features computable on real audio
+
+    rate = 16000
+    rng = np.random.default_rng(0)
+    pcm = (rng.standard_normal((2, 4000)) * 3000).astype("<i2")
+    path = tmp_path / "test.wav"
+    with wavemod.open(str(path), "wb") as w:
+        w.setnchannels(2); w.setsampwidth(2); w.setframerate(rate)
+        w.writeframes(pcm.T.tobytes())
+    samples, got_rate = read_wave(str(path))
+    assert got_rate == rate and samples.shape == (2, 4000)
+    np.testing.assert_array_equal(samples, pcm.astype(samples.dtype))
+    # features computable on the audio
     feats = compute_fbank(jnp.asarray(samples[0]),
                           FbankOptions(frame_opts=FrameOptions(
                               dither=0.0, samp_freq=rate)))
@@ -247,49 +259,31 @@ def test_read_wave_pipe(tmp_path):
     np.testing.assert_array_equal(direct, piped)
 
 
-class TestPallasStft:
-    """Fused STFT→mel kernel vs the XLA reference path (the GPU-vs-CPU
-    parity idiom), in interpret mode on CPU."""
+@pytest.mark.parametrize("kind,energy,n_samples", [
+    ("fbank", "raw", 400 + 22 * 160 + 97),
+    ("fbank", "windowed", 16000 + 59),
+    ("mfcc", "raw", 8000 + 131),
+])
+def test_features_match_reference_ragged_length(kind, energy, n_samples):
+    """Sample counts that are no multiple of the frame shift, with the
+    energy column computed raw (pre-window) or on windowed frames."""
+    from kaldi_ctc_tpu import reference
 
-    def test_fbank_parity(self):
-        from kaldi_ctc_tpu.features import FbankOptions, compute_fbank
-        rng = np.random.default_rng(0)
-        wave = jnp.asarray(
-            (rng.standard_normal(16000) * 1000).astype(np.float32))
-        for use_energy in (False, True):
-            for use_log in (True, False):
-                opts = FbankOptions(use_energy=use_energy,
-                                    use_log_fbank=use_log)
-                ref = np.asarray(compute_fbank(wave, opts,
-                                               implementation="xla"))
-                got = np.asarray(compute_fbank(
-                    wave, opts, implementation="pallas_interpret"))
-                np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
-
-    def test_mfcc_parity(self):
-        from kaldi_ctc_tpu.features import MfccOptions, compute_mfcc
-        rng = np.random.default_rng(1)
-        wave = jnp.asarray(
-            (rng.standard_normal(8000) * 500).astype(np.float32))
-        for opts in (MfccOptions(), MfccOptions.hires()):
-            ref = np.asarray(compute_mfcc(wave, opts,
-                                          implementation="xla"))
-            got = np.asarray(compute_mfcc(
-                wave, opts, implementation="pallas_interpret"))
-            np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
-
-    def test_non_multiple_block_frames(self):
-        from kaldi_ctc_tpu.features import FbankOptions, compute_fbank
-        rng = np.random.default_rng(2)
-        # 23 frames: exercises the partial-block padding path
-        wave = jnp.asarray(
-            (rng.standard_normal(400 + 22 * 160) * 100).astype(np.float32))
-        opts = FbankOptions()
-        ref = np.asarray(compute_fbank(wave, opts, implementation="xla"))
-        got = np.asarray(compute_fbank(wave, opts,
-                                       implementation="pallas_interpret"))
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+    rng = np.random.default_rng(n_samples)
+    wave = (rng.standard_normal(n_samples) * 1000).astype(np.float32)
+    if kind == "fbank":
+        opts = FbankOptions(frame_opts=NO_DITHER, use_energy=True,
+                            raw_energy=energy == "raw")
+        got = np.asarray(compute_fbank(jnp.asarray(wave), opts))
+        want = reference.fbank(wave, opts)
+    else:
+        opts = MfccOptions(frame_opts=NO_DITHER, use_energy=True,
+                           raw_energy=energy == "raw")
+        got = np.asarray(compute_mfcc(jnp.asarray(wave), opts))
+        want = reference.mfcc(wave, opts)
+    assert got.shape == want.shape == (num_frames(n_samples, NO_DITHER),
+                                       opts.dim)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-3)
 
 
 def test_vtln_warp_matches_kaldi_formula():

@@ -154,3 +154,33 @@ def test_resume_skips_trained_batches(tmp_path):
     # resumed at step 3 (epoch 1 batch 1 consumed): remaining work is
     # exactly 5 steps -> ends at 8, and the first new step is 4
     assert min(steps) == 4 and max(steps) == 8, steps
+
+
+def test_launch_gives_each_child_its_own_card(tmp_path):
+    """Child i sees only the i-th visible GPU, so no two JAX processes
+    reserve memory on the same card; too few cards is an error."""
+    probe = ("import os; open(os.path.join({d!r}, os.environ['PROCESS_ID']),"
+             " 'w').write(os.environ['CUDA_VISIBLE_DEVICES'])")
+
+    def launch(n, visible, out):
+        out.mkdir()
+        env = {k: v for k, v in os.environ.items()
+               if k != "CUDA_VISIBLE_DEVICES"}
+        if visible is not None:
+            env["CUDA_VISIBLE_DEVICES"] = visible
+        r = subprocess.run(
+            [sys.executable, "-m", "kaldi_ctc_tpu.cli.launch",
+             "--num-processes", str(n), "--", sys.executable, "-c",
+             probe.format(d=str(out))],
+            env=env, capture_output=True, text=True, timeout=120)
+        return r, {p.name: p.read_text() for p in out.iterdir()}
+
+    r, seen = launch(3, None, tmp_path / "all")
+    assert r.returncode == 0, r.stderr
+    assert seen == {"0": "0", "1": "1", "2": "2"}
+    r, seen = launch(2, "4,6", tmp_path / "subset")
+    assert r.returncode == 0, r.stderr
+    assert seen == {"0": "4", "1": "6"}
+    r, seen = launch(3, "4,6", tmp_path / "short")
+    assert r.returncode != 0 and not seen
+    assert "visible cards" in r.stderr
